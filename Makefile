@@ -15,18 +15,20 @@ $(SO): $(CODEC)
 
 # Address/UB sanitizer run of the C harness over generated fixtures.
 asan: $(CODEC) $(HARNESS)
+	mkdir -p .build
 	g++ -g -O1 -fsanitize=address,undefined -fno-omit-frame-pointer \
-	  -std=c++17 $(CODEC) $(HARNESS) -lz -o /tmp/codec_asan
-	python -m ngs_barcode_count_tpu.io._native.make_fixtures /tmp/codec_fix
-	/tmp/codec_asan /tmp/codec_fix
+	  -std=c++17 $(CODEC) $(HARNESS) -lz -o .build/codec_asan
+	python -m ngs_barcode_count_tpu.io._native.make_fixtures .build/codec_fix
+	.build/codec_asan .build/codec_fix
 
 # Thread sanitizer: the harness drives concurrent range readers the way
 # io/parallel_ingest.py does.
 tsan: $(CODEC) $(HARNESS)
+	mkdir -p .build
 	g++ -g -O1 -fsanitize=thread -std=c++17 $(CODEC) $(HARNESS) \
-	  -lz -o /tmp/codec_tsan
-	python -m ngs_barcode_count_tpu.io._native.make_fixtures /tmp/codec_fix
-	/tmp/codec_tsan /tmp/codec_fix
+	  -lz -o .build/codec_tsan
+	python -m ngs_barcode_count_tpu.io._native.make_fixtures .build/codec_fix
+	.build/codec_tsan .build/codec_fix
 
 sanitize: asan tsan
 
@@ -35,3 +37,4 @@ test:
 
 clean:
 	rm -f $(SO)
+	rm -rf .build

@@ -1,17 +1,17 @@
-"""TPU-native NGS barcode counter.
+"""JAX-native NGS barcode counter, run on a GPU.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of
-Roco-scientist/NGS-Barcode-Count (reference: /root/reference, Rust CLI
-``barcode-count`` v0.11.1): streams FASTQ, decodes DEL/CRISPR/bar-seq
-barcodes with error tolerance, and writes per-sample count CSVs — but
-designed TPU-first:
+A JAX/XLA framework with the capabilities of
+Roco-scientist/NGS-Barcode-Count (the Rust CLI ``barcode-count``
+v0.11.1): streams FASTQ, decodes DEL/CRISPR/bar-seq barcodes with error
+tolerance, and writes per-sample count CSVs — but designed as tensor
+programs for an accelerator:
 
 - reads are fixed-shape ``[B, L]`` int8 base/quality tensors,
 - the reference's per-read regex search (parse.rs:92) becomes a vectorized
   valid-offset scan, its sliding-window constant-region repair
   (parse.rs:287-313) becomes a windowed mismatch argmin with tie-drop, and
   its ``fix_error`` Hamming scan (parse.rs:553-593) becomes a one-hot ×
-  one-hot MXU matmul with top-2 tie detection,
+  one-hot matmul with top-2 tie detection,
 - counts accumulate into a dense ``[n_samples, prod(n_codes)]`` tensor via
   scatter-add and merge across a ``jax.sharding.Mesh`` with ``psum``.
 """

@@ -3,7 +3,7 @@
 The reference loads two CSVs into hashmaps and hashsets
 (info.rs:338-457); we additionally compile each position's barcode set
 into an int8 one-hot matrix ``[n_codes, len*4]`` so that error-tolerant
-matching is a single MXU matmul against a batch of extracted slots
+matching is a single matmul against a batch of extracted slots
 (replacing the per-read ``fix_error`` scan, parse.rs:553-593).
 """
 

@@ -1,4 +1,4 @@
-"""Count stores: the TPU equivalents of the reference's ``Results``
+"""Count stores: the device-side equivalents of the reference's ``Results``
 hashmaps (info.rs:661-809).
 
 Three accumulation paths, chosen once from the scheme + conversion files

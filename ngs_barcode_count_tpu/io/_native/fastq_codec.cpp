@@ -1,8 +1,9 @@
-// Native FASTQ -> tensor encoder (the TPU build's answer to the
+// Native FASTQ -> tensor encoder (this build's answer to the
 // reference's reader thread, input.rs:24-159).
 //
 // The reference streams lines through a mutex deque at ~300k reads/s per
-// core; feeding a TPU at >3M reads/s needs the byte->tensor conversion to
+// core; feeding an accelerator at >3M reads/s needs the byte->tensor
+// conversion to
 // be memory-bandwidth bound, so this codec:
 //   - scans newlines with a 16-byte-unrolled loop (memchr chunks),
 //   - encodes sequence bytes through a 256-entry lookup table directly
@@ -594,7 +595,7 @@ int64_t fastq_next_batch_packed(void* h, int64_t cap, int64_t width,
 // The wire-sort producer stage clusters similar reads before the
 // col-major transpose (parallel_ingest._sort_batch_rows); numpy's
 // comparison argsort took 12ms per 131k-read batch — this runs ~1.5ms,
-// freeing producer-thread CPU the relay's compressor competes for.
+// freeing producer-thread CPU a slow link's compressor competes for.
 void radix_argsort_u64(const uint64_t* keys, int64_t n, int32_t* order) {
   std::vector<int32_t> tmp(static_cast<size_t>(n));
   int32_t* src = order;

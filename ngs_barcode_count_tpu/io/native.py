@@ -70,15 +70,18 @@ class PackedReads:
 
 
 def _build() -> bool:
+    # per-process temporary output: concurrent first uses (test workers)
+    # each build their own copy and atomically rename it into place
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-        _SRC, _SRC2, "-lz", "-o", _SO + ".tmp",
+        _SRC, _SRC2, "-lz", "-o", tmp,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=180)
-        os.replace(_SO + ".tmp", _SO)
+        os.replace(tmp, _SO)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
 
 

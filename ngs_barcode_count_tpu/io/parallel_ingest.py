@@ -95,7 +95,7 @@ def _maybe_pack_quals(pb: PackedReads, qual_mode: str | None = None) -> None:
 def _maybe_transpose(pb: PackedReads,
                      qual_mode: str | None = None) -> PackedReads:
     """Column-major wire layout: bytes from the same read position land
-    adjacent, so the relay's stream compression sees long repetitive
+    adjacent, so a slow link's stream compression sees long repetitive
     runs (constants/adapters align across reads) — measured +29% raw
     link throughput and +5-60% e2e, never a loss.  The transpose runs
     here on the producer thread, overlapped with device work; the decode
@@ -130,7 +130,7 @@ def _sort_batch_rows(pb: PackedReads) -> None:
     live rows by their leading 8 packed bytes (flank offset + sample +
     first barcode) is free semantically and lengthens the column
     stream's runs — measured zlib1 ratio 0.364 -> 0.256 on the flagship
-    DEL wire (-30% relay bytes) at ~25 ms per 131k-read batch on the
+    DEL wire (-30% link bytes) at ~25 ms per 131k-read batch on the
     producer thread.  NGS_WIRE_SORT=0 disables."""
     n = pb.n_reads
     R = pb.packed
@@ -220,7 +220,7 @@ def read_fastq_packed_parallel(
         )
         return
     if n_threads <= 0:
-        # the relay's stream compression competes for the same cores:
+        # a slow link's stream compression competes for the same cores:
         # NGS_INGEST_THREADS caps the reader pool when ingest is not the
         # bottleneck (it rarely is — the C++ codec does ~3M reads/s/core)
         n_threads = int(

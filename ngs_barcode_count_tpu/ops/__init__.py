@@ -1,1 +1,1 @@
-"""Device-side decode ops (JAX/XLA + Pallas kernels)."""
+"""Device-side decode ops (plain JAX, compiled by XLA)."""

@@ -1,4 +1,4 @@
-"""The batched decode step: the TPU-native core engine.
+"""The batched decode step: the core decode engine, plain JAX compiled by XLA.
 
 This replaces the reference's entire per-read hot path (SequenceParser,
 parse.rs:53-163 + fix_error parse.rs:553-593) with one jitted function over
@@ -6,7 +6,7 @@ a ``[B, L]`` batch of reads:
 
 1.  **Offset scan** — the reference regex-searches each read for the format
     (constants exact, explicit-N runs ``[AGCT]``, barcode slots ``.{n}``;
-    parse.rs:92).  Here ONE MXU matmul of the c-major one-hot read tensor
+    parse.rs:92).  Here ONE matmul of the c-major one-hot read tensor
     against a precomputed scan matrix yields, for every alignment offset
     at once: strict constant matches, N-wildcard-relaxed constant
     matches, and wild-position ACGT counts.  The leftmost offset where
@@ -24,7 +24,7 @@ a ``[B, L]`` batch of reads:
     position 0 rather than the matched window (parse.rs:98-119 after
     repair rewrites the read).  Reproduced bit-for-bit.
 4.  **Barcode matching** — the reference's fix_error linear scan becomes a
-    one-hot read-slot x one-hot candidate-matrix matmul on the MXU:
+    one-hot read-slot x one-hot candidate-matrix matmul:
     match-count per candidate, argmin of mismatches, dropped when the
     minimum is not unique or exceeds the budget (parse.rs:438-524).
 5.  **Counting** — per-read (sample, combo) flat indices scatter-add into
@@ -240,16 +240,73 @@ def make_plan(
 # ---------------------------------------------------------------------------
 
 
-def _scan_lane() -> int:
-    """Column alignment of the scan matmul's offset axis.  128 matches
-    the TPU lane count (any less underfills the MXU/VPU) and stays the
-    default everywhere so the CPU-mesh test suite validates the exact
-    program shape the TPU runs.  XLA:CPU has no lane constraint, and
-    with O typically ~20-40 the 128-pad does 3-6x the real FLOPs — the
-    CPU fallbacks (bench.py claim failure, CLI NGS_CPU_FALLBACK) set
-    NGS_SCAN_LANE=8.  Padded columns are index-masked (offs < O), so
-    any value is bit-exact (tests/test_decode.py lane-equality test)."""
-    return int(os.environ.get("NGS_SCAN_LANE", 128))
+# Column alignment of the scan matmul's offset axis.  Padded columns are
+# index-masked (offs < O), so any value is bit-exact
+# (tests/test_decode_vs_oracle.py lane-equality test); 8 ran the dense
+# step fastest of 8/16/32/128 on an H100 (PERF.md).
+SCAN_LANE = 8
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
+
+
+def _scan_matrix(plan: DecodePlan, L: int, O: int, O_pad: int) -> np.ndarray:
+    """[5L, 3*O_pad] f32 weight matrix.  Column layout (contiguous
+    groups): [0, O_pad) strict-const matches per offset, [O_pad, 2*O_pad)
+    wild-position ACGT hits, [2*O_pad, 3*O_pad) relaxed-const matches
+    (read 'N' wildcard, parse.rs:569).  Input rows are c-major: c*L+l."""
+    scheme = plan.scheme
+    F = scheme.length
+    W = np.zeros((5 * L, 3 * O_pad), dtype=np.float32)
+    for o in range(O):
+        for p in range(F):
+            k = scheme.kind[p]
+            l = o + p
+            if l >= L:
+                break
+            if k == KIND_CONST:
+                b = int(scheme.fmt_codes[p])
+                W[b * L + l, o] += 1.0
+                W[b * L + l, 2 * O_pad + o] += 1.0
+                W[dna.N * L + l, 2 * O_pad + o] += 1.0
+            elif k == KIND_WILD:
+                for b in range(4):
+                    W[b * L + l, O_pad + o] += 1.0
+    return W
+
+
+def _front_key_bound(n_const: int, O_pad: int, n_wild: int) -> int:
+    """Max packed repair key in scan_offsets (must stay < 2^30)."""
+    return (n_const + 1) * _next_pow2(O_pad) * _next_pow2(n_wild + 1)
+
+
+def _realign(src, shift, L, O, TB, F):
+    """R[b, p] = src[b, shift[b] + p] for shift in [0, O) via a log2
+    shifter: ceil(log2(O)) conditional lane shifts instead of an
+    O-iteration select loop or a per-slot gather."""
+    work = src
+    for k in range((O - 1).bit_length()):
+        s = 1 << k
+        shifted = jnp.concatenate(
+            [work[:, s:], jnp.zeros((TB, s), work.dtype)], axis=1
+        )
+        bit = ((shift >> k) & 1) == 1  # [TB, 1]
+        work = jnp.where(bit, shifted, work)
+    return work[:, :F]
+
+
+def _onehot_cmajor(bases: jnp.ndarray) -> jnp.ndarray:
+    """[B, L] base codes -> [B, 5L] bf16 one-hot, c-major (row c*L + l is
+    "position l holds code c"; codes >= 5 set no row)."""
+    B, L = bases.shape
+    return jax.nn.one_hot(bases, 5, dtype=jnp.bfloat16, axis=1).reshape(
+        B, 5 * L
+    )
 
 
 def scan_offsets(plan: DecodePlan, bases: jnp.ndarray, lengths: jnp.ndarray):
@@ -265,30 +322,12 @@ def scan_offsets(plan: DecodePlan, bases: jnp.ndarray, lengths: jnp.ndarray):
     n_const = int(np.sum(scheme.kind == KIND_CONST))
     n_wild = int(np.sum(scheme.kind == KIND_WILD))
 
-    # One matmul over a c-major one-hot replaces the natural conv
-    # formulation: a 5-in/3-out-channel conv cannot tile onto the MXU
-    # (measured 4x slower device-resident than this matmul on v5e).
-    # bf16 operands + f32 accumulation: every operand is exactly 0/1 so
-    # the match counts stay exact integers, and the MXU runs at its bf16
-    # rate (2x the f32 formulation).
-    if jax.default_backend() == "cpu":
-        # bit-identical to the concat below, but one_hot(axis=1) lowers
-        # to one gather instead of 5 compare+convert passes on XLA:CPU
-        # (measured 2.2x: 531 -> 238 ns/read on the 4-core fallback).
-        # TPU keeps the concat form the roofline numbers were tuned on.
-        x1h = jax.nn.one_hot(bases, 5, dtype=jnp.bfloat16, axis=1).reshape(
-            B, 5 * L
-        )  # [B, 5L] c-major
-    else:
-        x1h = jnp.concatenate(
-            [(bases == c).astype(jnp.bfloat16) for c in range(5)], axis=1
-        )  # [B, 5L] c-major
-    from ngs_barcode_count_tpu.ops.pallas_decode import (
-        _round_up,
-        _scan_matrix,
-    )
-
-    O_pad = _round_up(O, _scan_lane())
+    # One matmul over a c-major one-hot replaces the natural 5-in /
+    # 3-out-channel conv.  bf16 operands + f32 accumulation: every
+    # operand is exactly 0/1 and every sum is below 2^24, so the match
+    # counts stay exact integers.
+    x1h = _onehot_cmajor(bases)  # [B, 5L] c-major
+    O_pad = _round_up(O, SCAN_LANE)
     w = jnp.asarray(_scan_matrix(plan, L, O, O_pad), jnp.bfloat16)
     out = jnp.dot(x1h, w, preferred_element_type=jnp.float32)
     strict = out[:, :O_pad].astype(jnp.int32)
@@ -315,18 +354,12 @@ def scan_offsets(plan: DecodePlan, bases: jnp.ndarray, lengths: jnp.ndarray):
     else:
         rep_in_range = (offs + F < lengths) & (offs < O)
     max_const = plan.max_errors.constant_region
-    from ngs_barcode_count_tpu.ops.pallas_decode import (
-        _front_key_bound,
-        _next_pow2,
-    )
-
     if _front_key_bound(n_const, O_pad, n_wild) < (1 << 30):
         # Pack (mismatches, offset, wild-hits) into one int32 key per
         # lane and recover min-mism / first and last best offset (the
-        # tie-drop) / wild count at the pick from TWO min-reductions —
-        # the six O-wide reduction/gather ops of the natural
-        # formulation were ~55% of this step's device time (the fused
-        # Pallas kernel uses the identical packing).
+        # tie-drop) / wild count at the pick from TWO min-reductions
+        # instead of the six O-wide reduction/gather ops of the natural
+        # formulation.
         cw_bits = (_next_pow2(n_wild + 1) - 1).bit_length()
         op_bits = (_next_pow2(O_pad) - 1).bit_length()
         op_mask = (1 << op_bits) - 1
@@ -388,8 +421,8 @@ def match_barcodes(
     The reference's fix_error (parse.rs:553-593) scans candidates counting
     mismatches where neither char is 'N', keeps the unique best <= budget.
     Encoding the read with N = all-ones and candidates one-hot makes the
-    per-position dot product the match indicator, so the MXU computes all
-    mismatch counts at once; a both-N position double-counts (dot = 4) and
+    per-position dot product the match indicator, so one matmul computes
+    all mismatch counts at once; a both-N position double-counts (dot = 4) and
     is corrected with a second small matmul only when the candidate set
     actually contains Ns.
 
@@ -399,7 +432,7 @@ def match_barcodes(
     r = (slot_codes[..., None] == jnp.arange(4, dtype=slot_codes.dtype)) | (
         slot_codes == dna.N
     )[..., None]
-    # 0/1 operands in bf16, f32 accumulation: exact and 2x MXU rate
+    # 0/1 operands in bf16, f32 accumulation: exact (sums < 2^24)
     r = r.reshape(B, sl * 4).astype(jnp.bfloat16)
     matches = jnp.dot(
         r, jnp.asarray(onehot, dtype=jnp.bfloat16).T,
@@ -417,7 +450,6 @@ def match_barcodes(
     if (sl + 1) * ncp2 < (1 << 30):
         # two packed-key min-reductions instead of min+argmin+sum: the
         # unique-best test is first-best column == last-best column
-        # (same packing as the Pallas kernel's matcher)
         nc_bits = (ncp2 - 1).bit_length()
         nc_mask = ncp2 - 1
         col = jnp.arange(nc, dtype=jnp.int32)[None, :]
@@ -452,10 +484,7 @@ def low_quality_mask(
     if not plan.qual_segments:
         return jnp.zeros(quals.shape[0], dtype=bool)
     # one elementwise shifter realign of the Phred lanes, then each
-    # segment is a static slice (per-segment take_along_axis gathers
-    # cost ~75 ns/read each on TPU; the shifter fuses)
-    from ngs_barcode_count_tpu.ops.pallas_decode import _realign
-
+    # segment is a static slice (no per-segment gathers)
     B, L = quals.shape
     F = max(s.start + s.length for s in plan.qual_segments)
     O = L - F + 1
@@ -508,11 +537,7 @@ def decode_batch(plan: DecodePlan, bases, quals, lengths, read_mask):
 
     # ONE log2-conditional-shift realign of the whole format window:
     # every slot extraction becomes a static slice.  Elementwise, so XLA
-    # fuses it (a take_along_axis realign measured 1.8x SLOWER — the
-    # materialized gather broke the per-slot fusion; the shifter variant
-    # measured faster than per-slot gathers).
-    from ngs_barcode_count_tpu.ops.pallas_decode import _realign
-
+    # fuses it instead of materializing a gather.
     B_, L_ = bases.shape
     O_ = L_ - F + 1
     R = _realign(bases, offset[:, None], L_, O_, B_, F)
@@ -771,16 +796,15 @@ def _dedup_sorted() -> bool:
     collapsed), so a different insert placement only moves which slot a
     triple lands in — lookups scan the whole probe window, and losers
     still overflow to the exact host path.  Final counts/counters are
-    identical; only table bit layout differs.  DEFAULT ON since the
-    round-4 hardware A/B (+3-7% across table sizes, BENCH.md round 4);
+    identical; only table bit layout differs.  Default on;
     NGS_DEDUP_SORTED=0 restores the row-order formulation."""
     return os.environ.get("NGS_DEDUP_SORTED", "1") == "1"
 
 
 def _dedup_windowed() -> int:
     """NGS_DEDUP_WINDOWED=1: replace the 4-step sequential probe loop
-    (4 x gather/scatter/gather = 12 dependent HBM ops — measured 91 of
-    the tail's ~142 ns/read on v5e) with ONE [B, 4] window gather for
+    (4 x gather/scatter/gather = 12 dependent device-memory ops) with
+    ONE [B, 4] window gather for
     duplicate detection plus two contention-resolved insert rounds
     (scatter + verify gathers each): ~6 dependent HBM ops.  Exact under
     the same fp-collision caveat: in-batch repeats were collapsed by
@@ -788,9 +812,8 @@ def _dedup_windowed() -> int:
     retries against the refreshed window and double-losers overflow to
     the exact host path (slots never free, so later occurrences of an
     overflowed triple keep overflowing).  =2 uses FOUR independent
-    [B] gathers instead of one [B, 4] gather (the strided window gather
-    measured slower than the plain loop on v5e; independent gathers
-    have no data dependency and can pipeline)."""
+    [B] gathers instead of one [B, 4] gather (independent gathers have
+    no data dependency and can pipeline)."""
     v = os.environ.get("NGS_DEDUP_WINDOWED", "0")
     return int(v) if v in ("0", "1", "2") else 0
 
@@ -799,8 +822,8 @@ def _dedup_probes() -> int:
     """NGS_DEDUP_PROBES: linear-probe window length (default 4).  Fewer
     probes = fewer dependent HBM ops per read; rows that exhaust the
     window compact into the EXACT host overflow path, so any value is
-    bit-correct — the knob trades device HBM traffic against overflow
-    volume (VERDICT r4 next-step #4 hardware sweep)."""
+    bit-correct — the knob trades device memory traffic against
+    overflow volume."""
     v = int(os.environ.get("NGS_DEDUP_PROBES", DEDUP_PROBES))
     return max(1, min(v, 8))
 
@@ -904,8 +927,8 @@ def hashset_update(
     plan: DecodePlan, table, counts, counters, counters_add, valid, flat,
     ridx, cap: int, variant: str | None = None,
 ):
-    """The dedup/count tail of random_hashset_step, shared by the XLA
-    and Pallas-kernel front ends: in-batch exact dedup (lex sort), the
+    """The dedup/count tail of random_hashset_step: in-batch exact
+    dedup (lex sort), the
     linear-probe table update, count scatter, and overflow compaction.
     ``counters_add`` carries the decode front end's error tallies;
     MATCHED/DUPLICATES are overwritten here from the dedup outcome.
@@ -1141,7 +1164,7 @@ def dense_count_step_packed_q(
 # 2-byte/read gate wire down (qual_start + class); the host evaluates the
 # segment-mean gate against the raw Phred bytes it still holds and sends
 # a 1-bit/read low-quality mask up; phase B folds the mask into the
-# counters and count scatter.  Bit-identical to the in-kernel gate:
+# counters and count scatter.  Bit-identical to the on-device gate:
 # sample/counted classification never depends on quality, and the
 # reference drops a low-quality read BEFORE barcode matching
 # (parse.rs:98-119), which phase B's masking reproduces exactly.
@@ -1182,8 +1205,6 @@ def dense_gate_probe_packed(
     else:
         qual_start = jnp.where(has_exact, exact_off, 0)
     alive = const_ok  # the gate masks later, in phase B
-
-    from ngs_barcode_count_tpu.ops.pallas_decode import _realign
 
     B_, L_ = bases.shape
     O_ = L_ - F + 1
@@ -1394,41 +1415,6 @@ def keyed_wire_layout(plan: DecodePlan) -> dict:
         pos += w
     layout["total"] = pos
     return layout
-
-
-def wire_hashset_inputs(plan: DecodePlan, wire):
-    """Recover (valid, flat, ridx) from a keyed wire matrix — the exact
-    values the XLA hashset front end computes from decode_batch, so the
-    Pallas keyed kernel (whose wire is bit-identical, TPU_CHECK.json)
-    can drive hashset_update.  Requires dense sample+counted ids and a
-    random slot (the hashset mode's precondition)."""
-    layout = keyed_wire_layout(plan)
-    if "fused" in layout:
-        _, _, s_bits, c_bits = layout["fused"]
-        col0 = wire[:, 0]
-        valid = (col0 >> (s_bits + c_bits)) == 1
-        sample_idx = (col0 >> c_bits) & ((1 << s_bits) - 1)
-        combo = col0 & ((1 << c_bits) - 1)
-    else:
-        valid = wire[:, layout["valid"][0]] == 1
-        sample_idx = (
-            wire[:, layout["sample_idx"][0]]
-            if "sample_idx" in layout
-            else jnp.zeros(wire.shape[0], jnp.int32)
-        )
-        combo = wire[:, layout["combo_flat"][0]]
-    flat = jnp.where(valid, sample_idx * plan.n_combos + combo, 0)
-    # random words (3-bit digits, low 5 in bits 0..14, high 5 in 15..29;
-    # pack_slot_words) -> the same base-6 index random_base6_index
-    # yields, digit by digit (int32 wrap semantics match for long slots)
-    pos, _ = layout["random_words"]
-    Lr = plan.scheme.random_slot.length
-    ridx = jnp.zeros(wire.shape[0], jnp.int32)
-    for i in range(Lr):
-        w, r = divmod(i, 10)
-        digit = (wire[:, pos + w] >> (3 * r)) & 7
-        ridx = ridx * 6 + digit
-    return valid, flat, ridx
 
 
 @partial(jax.jit, static_argnums=(0, 5))

@@ -2,7 +2,7 @@
 
 This is the test harness the reference never had (SURVEY.md section 4): a
 direct, string-based re-statement of barcode-count's decode logic
-(parse.rs) used to validate the vectorized TPU path on synthetic FASTQs.
+(parse.rs) used to validate the vectorized device path on synthetic FASTQs.
 It deliberately reproduces the reference's quirks:
 
 - regex search is leftmost-match, constants exact, explicit scheme-Ns are
@@ -235,3 +235,45 @@ class Oracle:
         return OracleResult(
             "matched", sample_barcode, tuple(counted), random_barcode
         )
+
+
+def oracle_counts(config, reads: list[str], quals: list[str]):
+    """Aggregate a run's counts the reference way, read by read through
+    the Oracle: returns ({sample DNA: {comma-joined barcode DNA: count}},
+    {outcome: count} incl. PCR ``duplicates``) for a runner.RunConfig."""
+    from ngs_barcode_count_tpu.runner import setup
+
+    scheme, conv, max_errors, plan, enrich = setup(config)
+    oracle = Oracle(
+        scheme, max_errors,
+        list(conv.samples_barcode_hash.keys()),
+        [s.sequences for s in conv.counted_sets],
+        max_errors.min_quality,
+    )
+    per_sample: dict[str, dict[str, int]] = {}
+    if conv.has_sample_file:
+        for sb in conv.samples_barcode_hash:
+            per_sample[sb] = {}
+    elif scheme.sample_slot is None:
+        per_sample["barcode"] = {}
+    seen_random = set()
+    tallies = dict(matched=0, constant_region=0, sample_barcode=0,
+                   barcode=0, low_quality=0, duplicates=0)
+    for r, q in zip(reads, quals):
+        o = oracle.decode(r, q)
+        if o.outcome != "matched":
+            tallies[o.outcome] += 1
+            continue
+        code = ",".join(o.counted_barcodes)
+        if scheme.random_barcode:
+            key = (o.sample_barcode, code, o.random_barcode)
+            if key in seen_random:
+                tallies["duplicates"] += 1
+                continue
+            seen_random.add(key)
+        tallies["matched"] += 1
+        per_sample.setdefault(o.sample_barcode, {})
+        per_sample[o.sample_barcode][code] = (
+            per_sample[o.sample_barcode].get(code, 0) + 1
+        )
+    return per_sample, tallies

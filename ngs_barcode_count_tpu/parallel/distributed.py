@@ -7,7 +7,7 @@ hosts; each host streams its OWN byte range of the FASTQ (aligned to
 record boundaries) through the native codec into its addressable
 devices; count tensors and counter vectors merge with one psum at flush
 (parallel/mesh.py).  No host ever ships read data to another host — the
-only cross-host traffic is the final count merge riding ICI/DCN.
+only cross-host traffic is the final count merge.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ Two mesh axes:
 
 Multi-host: the same mesh spans hosts via ``jax.distributed.initialize``;
 each host feeds its own FASTQ shard into its addressable devices and the
-psum rides ICI/DCN.
+psum rides the interconnect.
 """
 
 from __future__ import annotations
@@ -101,7 +101,7 @@ def match_barcodes_model_parallel(
     r = (slot_codes[..., None] == jnp.arange(4, dtype=slot_codes.dtype)) | (
         slot_codes == dna.N
     )[..., None]
-    # 0/1 operands in bf16, f32 accumulation: exact and 2x MXU rate
+    # 0/1 operands in bf16, f32 accumulation: exact (sums < 2^24)
     r = r.reshape(B, sl * 4).astype(jnp.bfloat16)
     matches = jnp.dot(
         r, onehot_shard.astype(jnp.bfloat16).T,
@@ -182,12 +182,9 @@ def decode_batch_sharded(
     alive = const_ok & ~lowq
 
     # one elementwise shifter realign; slot extraction = static slices
-    # (same rationale as decode_batch: take_along_axis gathers measured
-    # ~75 ns/read each on TPU)
-    from ngs_barcode_count_tpu.ops.pallas_decode import _realign
-
+    # (same rationale as decode_batch)
     B_, L_ = bases.shape
-    R = _realign(bases, offset[:, None], L_, L_ - F + 1, B_, F)
+    R = dec._realign(bases, offset[:, None], L_, L_ - F + 1, B_, F)
 
     def slot_codes_of(slot):
         return jax.lax.slice_in_dim(
@@ -355,14 +352,9 @@ class ShardedDenseEngine:
     def make_packed_step(self, width: int, with_quals: bool):
         """Wire-format sharded step: 2-bit packed rows shard over 'data',
         each device unpacks its shard (with its own rebased exception
-        bucket) and decodes at local kernel speed — the fused Pallas
-        kernel on TPU (n_model == 1), the model-parallel XLA path
-        otherwise.  Count state stays sharded; merging remains the one
-        psum at flush.  This is what makes multi-chip run at single-chip
-        kernel speed instead of falling back to the unpacked XLA path.
+        bucket) and decodes it.  Count state stays sharded; merging
+        remains the one psum at flush.
         """
-        import os
-
         plan = self.plan
         mesh = self.mesh
         n_data = self.n_data
@@ -371,31 +363,6 @@ class ShardedDenseEngine:
         cand_specs = jax.tree.map(
             lambda x: P("model", None, None), cand_arrays
         )
-
-        use_pallas = False
-        if self.n_model == 1 and jax.devices()[0].platform != "cpu":
-            # pallas everywhere since round 4 (see runner._pallas_step_for)
-            use_pallas = (
-                os.environ.get("NGS_DECODE_KERNEL", "pallas") == "pallas"
-            )
-        decode_kernel = None
-        kernel_packed_input = False
-        if use_pallas:
-            from ngs_barcode_count_tpu.ops import pallas_decode as pdec
-
-            try:
-                decode_kernel = pdec.build_pallas_decode(
-                    plan, width, TB=pdec._auto_tb(plan, width),
-                    packed_input=True,
-                )
-                kernel_packed_input = True
-            except Exception:
-                try:
-                    decode_kernel = pdec.build_pallas_decode(
-                        plan, width, TB=pdec._auto_tb(plan, width)
-                    )
-                except Exception:
-                    decode_kernel = None
 
         def local_step(counts, counters, cand, packed, lengths, exc_idx,
                        exc_val, n_reads, quals):
@@ -411,46 +378,6 @@ class ShardedDenseEngine:
                 < local_n
             )
             on_first = jax.lax.axis_index("model") == 0
-            if decode_kernel is not None:
-                from ngs_barcode_count_tpu.ops import pallas_decode as pdec
-
-                if kernel_packed_input:
-                    epk = pdec.exc_plane(
-                        exc_idx[0], exc_val[0], rows, width
-                    )
-                    flat, status = decode_kernel(
-                        packed, epk, lengths.astype(jnp.int32),
-                        local_n[None],
-                        *(() if quals is None else (quals,)),
-                    )
-                else:
-                    bases = unpack_bases(
-                        packed, exc_idx[0], exc_val[0], width
-                    )
-                    flat, status = decode_kernel(
-                        bases, lengths.astype(jnp.int32), local_n[None],
-                        *(() if quals is None else (quals,)),
-                    )
-                valid = status == pdec.ST_VALID
-                counts = counts.at[0, jnp.where(valid, flat, 0)].add(
-                    valid.astype(counts.dtype)
-                )
-                add = jnp.zeros(stats.NUM_COUNTERS, jnp.int32)
-                add = add.at[stats.MATCHED].set(jnp.sum(valid))
-                add = add.at[stats.CONSTANT_REGION].set(
-                    jnp.sum(status == pdec.ST_CONST)
-                )
-                add = add.at[stats.SAMPLE_BARCODE].set(
-                    jnp.sum(status == pdec.ST_SAMPLE)
-                )
-                add = add.at[stats.BARCODE].set(
-                    jnp.sum(status == pdec.ST_BARCODE)
-                )
-                add = add.at[stats.LOW_QUALITY].set(
-                    jnp.sum(status == pdec.ST_LOWQ)
-                )
-                counters = counters + add[None, :]
-                return counts, counters
             bases = unpack_bases(packed, exc_idx[0], exc_val[0], width)
             q = (
                 quals

@@ -3,8 +3,8 @@ under ``jax.distributed``.
 
 Design: barcode counting is embarrassingly data-parallel with a tiny
 mergeable state, so each host runs the full single-host fast path —
-packed wire ingest over its record-aligned byte range, the fused Pallas
-kernel (or XLA path) over its LOCAL device mesh — with ZERO cross-host
+packed wire ingest over its record-aligned byte range, the XLA decode
+step over its LOCAL device mesh — with ZERO cross-host
 traffic during the loop.  The only collectives are at flush:
 
 - dense mode: one allgather-sum of the [n_flat] count tensor + the [6]
@@ -108,7 +108,7 @@ def _owner_of(rows: np.ndarray, n_hosts: int) -> np.ndarray:
 def _exchange_to_owners(rows: np.ndarray) -> np.ndarray:
     """Hash-partitioned row exchange: every host sends each of its [n, k]
     uint64 rows to the row's owner host and receives the rows it owns —
-    ONE device all_to_all over a one-device-per-host mesh (DCN/ICI), so
+    ONE device all_to_all over a one-device-per-host mesh, so
     per-host traffic and RAM are O(total/n_hosts), not O(total)
     (VERDICT r4 weak #2: the triple merge used to allgather every
     distinct triple to every host).  Only the tiny [n_hosts, n_hosts]

@@ -54,7 +54,9 @@ class ShardedHashsetEngine:
     def build(cls, plan: DecodePlan, mesh: Mesh,
               n_slots_total: int) -> "ShardedHashsetEngine":
         n_data = mesh.shape["data"]
-        s_local = max(-(-n_slots_total // n_data), 8)
+        # floor: n_data * s_local never exceeds the int32 slot-id range
+        # the caller budgeted (runner.MAX_SHARDED_SLOTS)
+        s_local = max(n_slots_total // n_data, 8)
         return cls(plan=plan, mesh=mesh, n_data=n_data, s_local=s_local)
 
     def initial_state(self):
@@ -126,63 +128,6 @@ class ShardedHashsetEngine:
             cap_over = max(R // 8, 256)
         c6 = 6 ** plan.scheme.random_slot.length
 
-        # Fused-kernel decode front end per shard (same gating as the
-        # keyed single-device path: Pallas wherever a TPU is attached;
-        # the wire -> (valid, flat, ridx) reconstruction is shared with
-        # ops.pallas_decode.build_pallas_hashset_step)
-        decode_kernel = None
-        # NGS_PALLAS_INTERPRET=1: interpret-mode kernel on the CPU mesh
-        # (tests; Mosaic does not lower on CPU)
-        interp = os.environ.get("NGS_PALLAS_INTERPRET") == "1"
-        if interp:
-            tb = 8
-        else:
-            from ngs_barcode_count_tpu.ops import pallas_decode as _pd
-
-            tb = _pd._auto_tb(plan, width)
-        kernel_packed_input = False
-        if (
-            R % tb == 0
-            and (interp or jax.devices()[0].platform != "cpu")
-            and os.environ.get("NGS_DECODE_KERNEL", "pallas") == "pallas"
-        ):
-            from ngs_barcode_count_tpu.ops import pallas_decode as pdec
-
-            try:
-                decode_kernel = pdec.build_pallas_decode_keyed(
-                    plan, width, TB=tb, interpret=interp,
-                    packed_input=(
-                        os.environ.get("NGS_KERNEL_PACKED_INPUT", "1")
-                        == "1"
-                    ),
-                )
-                kernel_packed_input = (
-                    os.environ.get("NGS_KERNEL_PACKED_INPUT", "1") == "1"
-                )
-            except ValueError:
-                try:
-                    decode_kernel = pdec.build_pallas_decode_keyed(
-                        plan, width, TB=tb, interpret=interp
-                    )
-                except Exception as e:
-                    from ngs_barcode_count_tpu.runner import (
-                        _warn_kernel_fallback,
-                    )
-
-                    _warn_kernel_fallback(
-                        "sharded hashset decode", f"width={width}", e
-                    )
-                    decode_kernel = None
-            except Exception as e:
-                from ngs_barcode_count_tpu.runner import (
-                    _warn_kernel_fallback,
-                )
-
-                _warn_kernel_fallback(
-                    "sharded hashset decode", f"width={width}", e
-                )
-                decode_kernel = None
-
         def local_step(table, counts, counters, packed, lengths, exc_idx,
                        exc_val, n_reads, quals):
             from ngs_barcode_count_tpu.ops.decode import unpack_bases
@@ -195,53 +140,19 @@ class ShardedHashsetEngine:
                 jax.lax.broadcasted_iota(jnp.int32, (rows, 1), 0)
                 .squeeze(-1) < local_n
             )
-            if decode_kernel is not None:
-                from ngs_barcode_count_tpu.ops import pallas_decode as pdec
-
-                if kernel_packed_input:
-                    epk = pdec.exc_plane(
-                        exc_idx[0], exc_val[0], rows, width
-                    )
-                    wire, status = decode_kernel(
-                        packed, epk, lengths.astype(jnp.int32),
-                        local_n[None],
-                        *(() if quals is None else (quals,)),
-                    )
-                else:
-                    bases = unpack_bases(
-                        packed, exc_idx[0], exc_val[0], width
-                    )
-                    wire, status = decode_kernel(
-                        bases, lengths.astype(jnp.int32), local_n[None],
-                        *(() if quals is None else (quals,)),
-                    )
-                valid, flat, ridx = dec.wire_hashset_inputs(plan, wire)
-                dec_counters = jnp.zeros(stats.NUM_COUNTERS, jnp.int32)
-                for st, ctr in (
-                    (pdec.ST_CONST, stats.CONSTANT_REGION),
-                    (pdec.ST_SAMPLE, stats.SAMPLE_BARCODE),
-                    (pdec.ST_BARCODE, stats.BARCODE),
-                    (pdec.ST_LOWQ, stats.LOW_QUALITY),
-                ):
-                    dec_counters = dec_counters.at[ctr].set(
-                        jnp.sum(status == st)
-                    )
-            else:
-                bases = unpack_bases(
-                    packed, exc_idx[0], exc_val[0], width
-                )
-                q = (
-                    quals if quals is not None
-                    else jnp.zeros((rows, 1), jnp.int8)
-                )
-                r = dec.decode_batch(plan, bases, q, lengths, mask)
-                valid = r["valid"]
-                flat = jnp.where(
-                    valid,
-                    r["sample_idx"] * plan.n_combos + r["combo_flat"], 0,
-                )
-                ridx = dec.random_base6_index(r["random_codes"])
-                dec_counters = r["counters"]
+            bases = unpack_bases(packed, exc_idx[0], exc_val[0], width)
+            q = (
+                quals if quals is not None
+                else jnp.zeros((rows, 1), jnp.int8)
+            )
+            r = dec.decode_batch(plan, bases, q, lengths, mask)
+            valid = r["valid"]
+            flat = jnp.where(
+                valid,
+                r["sample_idx"] * plan.n_combos + r["combo_flat"], 0,
+            )
+            ridx = dec.random_base6_index(r["random_codes"])
+            dec_counters = r["counters"]
 
             S_total = n * S_local
             slot_g = (

@@ -2,7 +2,8 @@
 
 The reference parses its format file into a regex with named capture groups
 and searches every read with it (reference info.rs:215-310, parse.rs:92).
-There is no regex on a TPU; instead the scheme compiles to static tensors:
+There is no regex on an accelerator; instead the scheme compiles to static
+tensors:
 
 - ``fmt_codes  [F] int8`` — the format as base codes: constants are
   A/C/G/T, every barcode position and explicit ``N`` is the N wildcard.

@@ -6,6 +6,8 @@ profiler hooks).
   a Perfetto/TensorBoard-compatible trace of the decode steps.
 - ``Throughput``: rolling reads/s meter used by the runner's progress
   line and logged per batch when NGS_TRACE=1.
+- ``gpu_name_and_power_limit()``: the card's name and power limit, which
+  every device measurement is reported beside.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -69,3 +72,21 @@ class Throughput:
     @property
     def reads_per_second(self) -> float:
         return self.total / max(time.perf_counter() - self.t0, 1e-9)
+
+
+def gpu_name_and_power_limit() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` for every card, one
+    line each, or a note saying why it could not be read.  A card set
+    below its maximum power runs slower under load, so timings are
+    reported beside this."""
+    cmd = [
+        "nvidia-smi", "--query-gpu=name,power.limit",
+        "--format=csv,noheader",
+    ]
+    try:
+        out = subprocess.run(
+            cmd, capture_output=True, text=True, timeout=30, check=True
+        )
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unavailable ({type(e).__name__})"
+    return out.stdout.strip()

@@ -2,15 +2,14 @@
 """Library-size scaling: decode throughput vs candidate-set size.
 
 The reference's fix_error (parse.rs:553-593) is a linear scan — decode
-cost grows ~linearly with the barcode library. Here matching is an MXU
+cost grows ~linearly with the barcode library. Here matching is a
 matmul against the candidate matrix, so throughput should stay nearly
 flat into the tens of thousands of candidates per position (the DEL
 mega-library case). This script measures the device-resident packed
-dense step (Pallas kernel, XLA fallback where the kernel declines) for
-geometrically growing per-position library sizes and prints one JSON
-line with the sweep.
+dense XLA step for geometrically growing per-position library sizes and
+prints one JSON line with the sweep.
 
-Run on TPU (background; first execution pays the pool claim):
+Run on the GPU:
     python scripts/bench_library_scale.py
 Env: NGS_LIB_SIZES (default "96,1024,4096,16384"), NGS_PROF_BATCH,
 NGS_PROF_REPS, NGS_BENCH_DIR.
@@ -52,7 +51,7 @@ def main():
     ]
     batch = int(os.environ.get("NGS_PROF_BATCH", 1 << 17))
     reps = int(os.environ.get("NGS_PROF_REPS", 10))
-    workdir = os.environ.get("NGS_BENCH_DIR", "/tmp/ngs_bench")
+    workdir = os.environ.get("NGS_BENCH_DIR", os.path.join(ROOT, ".bench"))
     os.makedirs(workdir, exist_ok=True)
     blen = 9  # 9-mers: 262k possible codes (CRISPR guide / bar-seq case)
 
@@ -92,8 +91,6 @@ def main():
     from ngs_barcode_count_tpu.io.parallel_ingest import (
         read_fastq_packed_parallel,
     )
-    from ngs_barcode_count_tpu.ops import pallas_decode as pdec
-
     pb = next(iter(read_fastq_packed_parallel(
         fq, min_width=scheme.length, batch_reads=batch,
     )))
@@ -105,8 +102,6 @@ def main():
         jax.device_put(pb.exc_idx), jax.device_put(pb.exc_val),
         jax.device_put(np.array([pb.n_reads], np.int32)),
     ]
-    on_tpu = jax.devices()[0].platform != "cpu"
-
     sweep = []
     for n in sizes:
         sets = [s[:n] for s in big]
@@ -136,25 +131,10 @@ def main():
 
         from ngs_barcode_count_tpu import stats
 
-        engine = "xla"
-        step = None
-        if on_tpu:
-            try:
-                pstep = pdec.build_pallas_packed_step(plan, pb.width)
-
-                def step(state, ctr, pstep=pstep):
-                    return pstep(state, ctr, *d)
-
-                engine = "pallas"
-            except Exception:
-                step = None
-        if step is None:
-
-            def step(state, ctr, plan=plan):
-                return dec.dense_count_step_packed(
-                    plan, state, ctr, d[0], d[1], d[2], d[3], pb.width,
-                    d[4],
-                )
+        def step(state, ctr, plan=plan):
+            return dec.dense_count_step_packed(
+                plan, state, ctr, d[0], d[1], d[2], d[3], pb.width, d[4],
+            )
 
         state = jnp.zeros(plan.n_samples * plan.n_combos, jnp.int32)
         ctr = jnp.zeros(stats.NUM_COUNTERS, jnp.int32)
@@ -170,10 +150,9 @@ def main():
             "library_per_position": n,
             "reads_per_s": round(rps, 1),
             "ns_per_read": round(1e9 * el / (reps * pb.n_reads), 1),
-            "engine": engine,
             "matched_total": matched,
         })
-        print(f"# n={n:6d} {rps/1e6:7.2f} M reads/s ({engine})",
+        print(f"# n={n:6d} {rps/1e6:7.2f} M reads/s",
               file=sys.stderr, flush=True)
 
     base = sweep[0]["reads_per_s"]

@@ -27,7 +27,7 @@ QUAL_LEVELS = np.array([25, 37, 40], np.uint8)  # RTA-style bins
 def main():
     n_reads = int(os.environ.get("NGS_BENCH_READS", 4_000_000))
     batch_size = int(os.environ.get("NGS_BENCH_BATCH", 1 << 17))
-    workdir = os.environ.get("NGS_BENCH_DIR", "/tmp/ngs_bench")
+    workdir = os.environ.get("NGS_BENCH_DIR", os.path.join(ROOT, ".bench"))
     os.makedirs(workdir, exist_ok=True)
 
     from bench import SAMPLES, SCHEME_TEXT, _barcode_sets
@@ -92,7 +92,7 @@ def main():
     scheme, conv, me, plan, _ = setup(cfg)
     assert plan.min_quality > 0
 
-    # warmup (claim + compile) for every wire mode: the 2/4-bit codebook
+    # warmup (compile) for every wire mode: the 2/4-bit codebook
     # wire ("pack"), raw Phred bytes ("raw"), and the round-5 two-phase
     # host gate ("host": no quality bytes on the link at all)
     modes = tuple(
@@ -145,6 +145,7 @@ def main():
         "detail": {
             "config": "min_quality_30_dense",
             "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind,
             "n_reads": total,
             "default_mode": default_mode,
             "best_mode": best_mode,

@@ -35,7 +35,7 @@ TAGA
 def main():
     n_reads = int(os.environ.get("NGS_BENCH_READS", 4_000_000))
     batch_size = int(os.environ.get("NGS_BENCH_BATCH", 1 << 17))
-    workdir = os.environ.get("NGS_BENCH_DIR", "/tmp/ngs_bench")
+    workdir = os.environ.get("NGS_BENCH_DIR", os.path.join(ROOT, ".bench"))
     os.makedirs(workdir, exist_ok=True)
 
     from bench import SAMPLES, _barcode_sets
@@ -97,46 +97,10 @@ def main():
     # (NGS_DEVICE_DEDUP=0 measures the host keyed path instead)
     os.environ["NGS_BITMAP_LIMIT_BYTES"] = "1"
 
-    # warmup (claim + compile)
+    # warmup (compile)
     acc0 = CountAccumulator(plan, conv)
     decode_file(cfg, plan, scheme, acc0, limit_batches=1)
     acc0.finalize()
-
-    # Same-phase transfer-only link ceiling on the ACTUAL random-mode
-    # wire (the 8-base random barcode injects incompressible columns the
-    # relay penalizes super-linearly — BENCH.md): e2e / this ratio is the
-    # machine-captured "fraction of the link" figure (VERDICT r2 #3).
-    import jax
-    import jax.numpy as jnp
-
-    from ngs_barcode_count_tpu.io.parallel_ingest import (
-        read_fastq_packed_parallel,
-    )
-
-    link_ceiling_rps = None
-    if jax.devices()[0].platform != "cpu":
-        tsum = jax.jit(
-            lambda p, l, ei, ev: jnp.sum(p, dtype=jnp.int32)
-            + jnp.sum(l, dtype=jnp.int32) + jnp.sum(ei, dtype=jnp.int32)
-        )
-        n_probe, t0, acc_p = 0, None, None
-        for k, pbw in enumerate(read_fastq_packed_parallel(
-            fastq, min_width=scheme.length, batch_reads=batch_size,
-        )):
-            r = tsum(pbw.packed, pbw.lengths, pbw.exc_idx, pbw.exc_val)
-            if k == 0:
-                int(r)
-                t0 = time.perf_counter()
-            else:
-                acc_p = r
-                n_probe += pbw.n_reads
-            if k == 16:
-                break
-        if n_probe:
-            int(acc_p)
-            link_ceiling_rps = round(
-                n_probe / (time.perf_counter() - t0), 1
-            )
 
     times = []
     for _ in range(2):
@@ -168,11 +132,6 @@ def main():
             "duplicates": int(acc.seq_errors.counters[S.DUPLICATES]),
             "batch_size": batch_size,
             "mode": mode,
-            "link_ceiling_reads_per_s": link_ceiling_rps,
-            "e2e_fraction_of_link_ceiling": (
-                round(rps / link_ceiling_rps, 3)
-                if link_ceiling_rps else None
-            ),
         },
     }))
 

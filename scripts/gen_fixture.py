@@ -77,7 +77,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("n_reads", type=int)
     ap.add_argument("workdir", nargs="?", default=os.environ.get(
-        "NGS_BENCH_DIR", "/tmp/ngs_bench"))
+        "NGS_BENCH_DIR", os.path.join(ROOT, ".bench")))
     ap.add_argument("--workers", type=int, default=os.cpu_count() or 4)
     ap.add_argument("--random", action="store_true",
                     help="config-4 shape: scheme gains an (8) random slot")

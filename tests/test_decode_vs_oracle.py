@@ -297,24 +297,42 @@ def test_lowercase_read_rejected_like_reference(example_scheme, rng):
     assert not res["valid"][1]
 
 
-def test_scan_lane_padding_is_bit_exact(example_scheme, rng, monkeypatch):
-    """NGS_SCAN_LANE (the scan matmul's offset-axis padding) must never
-    change results: padded columns are index-masked, so the 8-lane CPU
-    fallback and the 128-lane TPU default classify identically."""
+@pytest.mark.parametrize("lane", [8, 16, 32, 128])
+def test_scan_lane_padding_is_bit_exact(example_scheme, rng, monkeypatch,
+                                        lane):
+    """The scan matmul's offset-axis padding (SCAN_LANE) must never
+    change results: padded columns are index-masked, so every lane
+    width classifies like the default and like the oracle."""
     reads = gen_reads(rng, example_scheme, 256, err_range=(0, 8))
     quals = ["I" * len(r) for r in reads]
-
-    results = {}
-    for lane in ("128", "8"):
-        monkeypatch.setenv("NGS_SCAN_LANE", lane)
-        # fresh plan per lane: DecodePlan hashes by identity, so this
-        # forces a re-trace (a shared plan would hit the jit cache and
-        # silently compare the 128-lane program against itself)
-        plan, oracle, conv = build_plan(example_scheme)
-        results[lane] = classify_device(plan, reads, quals)
-    for key in results["128"]:
+    plan, oracle, conv = build_plan(example_scheme)
+    want = classify_device(plan, reads, quals)
+    monkeypatch.setattr(dec, "SCAN_LANE", lane)
+    # fresh plan: DecodePlan hashes by identity, so this forces a
+    # re-trace (a shared plan would hit the jit cache and silently
+    # compare the default program against itself)
+    plan, oracle, conv = build_plan(example_scheme)
+    got = classify_device(plan, reads, quals)
+    for key in want:
         np.testing.assert_array_equal(
-            np.asarray(results["128"][key]),
-            np.asarray(results["8"][key]),
+            np.asarray(got[key]), np.asarray(want[key]),
             err_msg=f"lane padding changed {key}",
         )
+    for i, o in enumerate(oracle_outcomes(oracle, reads, quals)):
+        assert bool(got["valid"][i]) == (o.outcome == "matched")
+
+
+@pytest.mark.parametrize("noise", ["clean", "n_other_pad"])
+def test_onehot_matches_concat_form(rng, noise):
+    """The scan's c-major one-hot equals the per-code compare/concat
+    formulation it replaced, for every code incl. N, OTHER and PAD."""
+    import jax.numpy as jnp
+
+    hi = 4 if noise == "clean" else dna.NUM_SYMBOLS
+    bases = rng.integers(0, hi, (64, 40)).astype(np.int8)
+    got = np.asarray(dec._onehot_cmajor(jnp.asarray(bases)))
+    want = np.concatenate(
+        [(bases == c).astype(np.float32) for c in range(5)], axis=1
+    )
+    assert got.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(got.astype(np.float32), want)

@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 
-from ngs_barcode_count_tpu.oracle import Oracle
+from ngs_barcode_count_tpu.oracle import oracle_counts
 from ngs_barcode_count_tpu.runner import RunConfig, run, setup
 from ngs_barcode_count_tpu.utils import simulate
 
@@ -75,44 +75,6 @@ def gen_fastq(tmp_path, scheme, n, rng, gz=False, quality_range=None,
     path = tmp_path / (name + (".gz" if gz else ""))
     simulate.write_fastq(str(path), reads, quals, gzip_out=gz)
     return str(path), reads, quals
-
-
-def oracle_counts(config: RunConfig, reads, quals):
-    """Aggregate counts the reference way using the string oracle."""
-    scheme, conv, max_errors, plan, enrich = setup(config)
-    oracle = Oracle(
-        scheme, max_errors,
-        list(conv.samples_barcode_hash.keys()),
-        [s.sequences for s in conv.counted_sets],
-        max_errors.min_quality,
-    )
-    per_sample: dict[str, dict[str, int]] = {}
-    if conv.has_sample_file:
-        for sb in conv.samples_barcode_hash:
-            per_sample[sb] = {}
-    elif scheme.sample_slot is None:
-        per_sample["barcode"] = {}
-    seen_random = set()
-    tallies = dict(matched=0, constant_region=0, sample_barcode=0,
-                   barcode=0, low_quality=0, duplicates=0)
-    for r, q in zip(reads, quals):
-        o = oracle.decode(r, q)
-        if o.outcome != "matched":
-            tallies[o.outcome] += 1
-            continue
-        code = ",".join(o.counted_barcodes)
-        if scheme.random_barcode:
-            key = (o.sample_barcode, code, o.random_barcode)
-            if key in seen_random:
-                tallies["duplicates"] += 1
-                continue
-            seen_random.add(key)
-        tallies["matched"] += 1
-        per_sample.setdefault(o.sample_barcode, {})
-        per_sample[o.sample_barcode][code] = (
-            per_sample[o.sample_barcode].get(code, 0) + 1
-        )
-    return per_sample, tallies
 
 
 def assert_counts_equal(result, expected_per_sample, tallies):
@@ -484,17 +446,14 @@ def test_device_hashset_dedup_equals_host_keyed(tmp_path, rng, monkeypatch):
         acc_host.results_view().per_sample
 
 
-@pytest.mark.parametrize(
-    "bucket_cap,kernel", [(None, False), ("3", False), (None, True)]
-)
+@pytest.mark.parametrize("bucket_cap", [None, "3"])
 def test_sharded_hashset_dedup_equals_single(tmp_path, rng, monkeypatch,
-                                             bucket_cap, kernel):
+                                             bucket_cap):
     """Multi-device random mode: the table shards over the data mesh and
     triples route to owner devices via all_to_all; counts must equal the
     single-device hash set and the host keyed path exactly — including
-    with a tiny table (probe overflow), a tiny all_to_all bucket cap
-    (bucket overflow), and with the Pallas keyed kernel as the per-shard
-    decode front end (interpret mode on this CPU mesh)."""
+    with a tiny table (probe overflow) and a tiny all_to_all bucket cap
+    (bucket overflow)."""
     import jax
 
     if len(jax.devices()) < 4:
@@ -513,8 +472,6 @@ def test_sharded_hashset_dedup_equals_single(tmp_path, rng, monkeypatch,
     monkeypatch.setenv("NGS_DEDUP_TABLE_SLOTS", "64")
     if bucket_cap:
         monkeypatch.setenv("NGS_DEDUP_BUCKET_CAP", bucket_cap)
-    if kernel:
-        monkeypatch.setenv("NGS_PALLAS_INTERPRET", "1")
     scheme, conv, me, plan, _ = setup(cfg)
 
     acc1 = CountAccumulator(plan, conv)
@@ -598,17 +555,15 @@ def test_mega_combo_space_demotes_to_keyed(tmp_path, rng):
 
 
 def test_mega_combo_pallas_keyed_wire_parity(tmp_path, rng):
-    """The Pallas keyed kernel's counted_idx wire columns must equal the
-    XLA path's on a mega-combo plan (interpret mode)."""
+    """The packed keyed step's counted_idx wire columns (native wire
+    input) must equal the unpacked decode's on a mega-combo plan."""
     import jax
-    import jax.numpy as jnp
 
     from ngs_barcode_count_tpu.conversions import (
         BarcodeConversions, BarcodeSet,
     )
     from ngs_barcode_count_tpu.errors import MaxSeqErrors
     from ngs_barcode_count_tpu.ops import decode as dec
-    from ngs_barcode_count_tpu.ops import pallas_decode as pdec
     from tests.test_decode_vs_oracle import encode_batch
 
     paths = write_inputs(tmp_path, with_files=False)
@@ -652,17 +607,29 @@ def test_mega_combo_pallas_keyed_wire_parity(tmp_path, rng):
         )
         reads.append(r)
         quals.append("I" * len(r))
+    from ngs_barcode_count_tpu.io.parallel_ingest import (
+        read_fastq_packed_parallel,
+    )
+
+    fq = tmp_path / "mega_wire.fastq"
+    simulate.write_fastq(str(fq), reads, quals)
+    pb = next(iter(read_fastq_packed_parallel(
+        str(fq), min_width=scheme.length, batch_reads=128,
+    )))
+    if getattr(pb, "transposed", False):
+        pb.packed = np.ascontiguousarray(pb.packed.T)
+        pb.transposed = False
+    n = np.array([pb.n_reads], np.int32)
+    wire_p = np.asarray(dec.keyed_decode_step_packed(
+        plan, pb.packed, pb.lengths, pb.exc_idx, pb.exc_val, pb.width, n,
+    )["wire"])[: len(reads)]
     bases, quality, lengths, mask = encode_batch(reads, quals)
-    B, L = bases.shape
-    n = np.array([B], np.int32)
-    kfn = pdec.build_pallas_decode_keyed(plan, L, TB=8, interpret=True)
-    wire_p, status_p = kfn(bases, lengths, n)
     out_x = dec.keyed_decode_step(plan, bases, quality, lengths, mask)
     from ngs_barcode_count_tpu.ops.decode import _keyed_packed_outputs
 
     compact = jax.jit(lambda: _keyed_packed_outputs(plan, out_x))()
     valid = np.asarray(out_x["valid"])
     np.testing.assert_array_equal(
-        np.asarray(wire_p)[valid], np.asarray(compact["wire"])[valid]
+        wire_p[valid], np.asarray(compact["wire"])[valid]
     )
     assert valid.sum() > 0

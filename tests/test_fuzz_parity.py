@@ -358,22 +358,38 @@ def test_fuzzed_merge_enrich_gzip_outputs(tmp_path, seed):
         assert not list(tmp_path.glob("*.Single.csv"))
 
 
-@pytest.mark.parametrize("seed", range(6))
-def test_fuzzed_packed_input_kernel(tmp_path, seed):
-    """Fuzzed schemes through the deinterleaved packed-input kernel
-    (interpret mode) vs the unpacked kernel: the deint index math (row
-    permutations, realign block rotations, exception plane) must stay
-    bit-identical across scheme shapes — N runs, odd slot layouts,
-    sample/random regions, short reads, read-Ns."""
+def _packed_batch(scheme, reads, quals, batch=256):
     import tempfile
 
     from ngs_barcode_count_tpu.io.parallel_ingest import (
         read_fastq_packed_parallel,
     )
-    from ngs_barcode_count_tpu.ops import pallas_decode as pdec
-    from ngs_barcode_count_tpu.ops.decode import unpack_bases
+
+    with tempfile.TemporaryDirectory() as td:
+        fq = td + "/f.fastq"
+        simulate.write_fastq(fq, reads, quals)
+        pb = next(iter(read_fastq_packed_parallel(
+            fq, min_width=scheme.length, batch_reads=batch,
+        )))
+    if getattr(pb, "transposed", False):
+        pb.packed = np.ascontiguousarray(pb.packed.T)
+        pb.transposed = False
+    return pb, np.array([pb.n_reads], np.int32)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fuzzed_packed_input_kernel(tmp_path, seed):
+    """Fuzzed dense schemes through the packed-input XLA step (native
+    2-bit wire + exception list, unpacked on device): counters equal
+    the string oracle's tallies and per-combo counts its counts, across
+    scheme shapes — N runs, odd slot layouts, sample regions, short
+    reads, read-Ns."""
+    import jax.numpy as jnp
+
+    from ngs_barcode_count_tpu import stats as S
 
     rng = np.random.default_rng(9000 + seed)
+    checked = 0
     for _ in range(3):
         text = _random_scheme_text(rng)
         scheme = parse_scheme_text(text)
@@ -384,52 +400,52 @@ def test_fuzzed_packed_input_kernel(tmp_path, seed):
         )
         plan = dec.make_plan(scheme, conv, me)
         if not plan.dense_counts:
-            continue  # dense kernel only (random schemes -> keyed path)
+            continue  # dense step only (random schemes -> keyed path)
+        oracle = Oracle(
+            scheme, me, list(conv.samples_barcode_hash.keys()),
+            [s.sequences for s in conv.counted_sets], 0.0,
+        )
         reads, quals = _reads(rng, scheme, samples, sets, 200)
-        with tempfile.TemporaryDirectory() as td:
-            fq = td + "/f.fastq"
-            simulate.write_fastq(fq, reads, quals)
-            pb = next(iter(read_fastq_packed_parallel(
-                fq, min_width=scheme.length, batch_reads=256,
-            )))
-        if getattr(pb, "transposed", False):
-            pb.packed = np.ascontiguousarray(pb.packed.T)
-            pb.transposed = False
-        n = np.array([pb.n_reads], np.int32)
-        lengths = np.asarray(pb.lengths).astype(np.int32)
-        try:
-            f_pk = pdec.build_pallas_decode(
-                plan, pb.width, TB=8, interpret=True, packed_input=True
-            )
-        except ValueError:
-            continue  # per-slot fallback configs: no deint variant
-        f_unp = pdec.build_pallas_decode(
-            plan, pb.width, TB=8, interpret=True
+        pb, n = _packed_batch(scheme, reads, quals)
+        counts, ctr = dec.dense_count_step_packed(
+            plan, jnp.zeros(plan.n_samples * plan.n_combos, jnp.int32),
+            jnp.zeros(S.NUM_COUNTERS, jnp.int32), pb.packed, pb.lengths,
+            pb.exc_idx, pb.exc_val, pb.width, n,
         )
-        bases = unpack_bases(pb.packed, pb.exc_idx, pb.exc_val, pb.width)
-        flat_u, st_u = f_unp(bases, lengths, n)
-        epk = pdec.exc_plane(pb.exc_idx, pb.exc_val, 256, pb.width)
-        flat_p, st_p = f_pk(pb.packed, epk, lengths, n)
-        np.testing.assert_array_equal(
-            np.asarray(st_u), np.asarray(st_p), err_msg=text
-        )
-        np.testing.assert_array_equal(
-            np.asarray(flat_u), np.asarray(flat_p), err_msg=text
-        )
+        want = np.zeros(plan.n_samples * plan.n_combos, np.int64)
+        tallies = {k: 0 for k in ("matched", "constant_region",
+                                  "sample_barcode", "barcode")}
+        samp = list(conv.samples_barcode_hash.keys())
+        for r, q in zip(reads, quals):
+            o = oracle.decode(r, q)
+            tallies[o.outcome] += 1
+            if o.outcome != "matched":
+                continue
+            flat = samp.index(o.sample_barcode) if samp else 0
+            for j, code in enumerate(o.counted_barcodes):
+                flat = flat * plan.combo_radix[j] + list(
+                    conv.counted_sets[j].sequences
+                ).index(code)
+            want[flat] += 1
+        ctr = np.asarray(ctr)
+        assert ctr[S.MATCHED] == tallies["matched"], text
+        assert ctr[S.CONSTANT_REGION] == tallies["constant_region"], text
+        assert ctr[S.SAMPLE_BARCODE] == tallies["sample_barcode"], text
+        assert ctr[S.BARCODE] == tallies["barcode"], text
+        np.testing.assert_array_equal(np.asarray(counts), want, err_msg=text)
+        checked += 1
+    assert checked
 
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fuzzed_packed_input_keyed_kernel(tmp_path, seed):
-    """Keyed-mode deint kernel (wire emission incl. word packing over
-    deint rows) vs the unpacked keyed kernel across fuzzed schemes with
-    random/raw regions."""
-    import tempfile
+    """Keyed-mode packed XLA step (wire emission incl. 3-bit word
+    packing) vs the unpacked keyed decode across fuzzed schemes with
+    random/raw regions: identical valid flags and wire rows, and valid
+    flags equal to the oracle's."""
+    import jax
 
-    from ngs_barcode_count_tpu.io.parallel_ingest import (
-        read_fastq_packed_parallel,
-    )
-    from ngs_barcode_count_tpu.ops import pallas_decode as pdec
-    from ngs_barcode_count_tpu.ops.decode import unpack_bases
+    from ngs_barcode_count_tpu.ops.decode import _keyed_packed_outputs
 
     rng = np.random.default_rng(31000 + seed)
     checked = 0
@@ -447,40 +463,28 @@ def test_fuzzed_packed_input_keyed_kernel(tmp_path, seed):
         if plan.dense_counts:
             continue
         reads, quals = _reads(rng, scheme, samples, sets, 200)
-        with tempfile.TemporaryDirectory() as td:
-            fq = td + "/f.fastq"
-            simulate.write_fastq(fq, reads, quals)
-            pb = next(iter(read_fastq_packed_parallel(
-                fq, min_width=scheme.length, batch_reads=256,
-            )))
-        if getattr(pb, "transposed", False):
-            pb.packed = np.ascontiguousarray(pb.packed.T)
-            pb.transposed = False
-        n = np.array([pb.n_reads], np.int32)
-        lengths = np.asarray(pb.lengths).astype(np.int32)
-        try:
-            f_pk = pdec.build_pallas_decode_keyed(
-                plan, pb.width, TB=8, interpret=True, packed_input=True
-            )
-        except ValueError:
-            continue
-        f_unp = pdec.build_pallas_decode_keyed(
-            plan, pb.width, TB=8, interpret=True
+        pb, n = _packed_batch(scheme, reads, quals)
+        wire_p = np.asarray(dec.keyed_decode_step_packed(
+            plan, pb.packed, pb.lengths, pb.exc_idx, pb.exc_val, pb.width, n,
+        )["wire"])[: len(reads)]
+        bases, quality, lengths, mask = encode_batch(reads, quals)
+        out = dec.keyed_decode_step(plan, bases, quality, lengths, mask)
+        wire_u = np.asarray(
+            jax.jit(lambda: _keyed_packed_outputs(plan, out))()["wire"]
         )
-        bases = unpack_bases(pb.packed, pb.exc_idx, pb.exc_val, pb.width)
-        wire_u, st_u = f_unp(bases, lengths, n)
-        epk = pdec.exc_plane(pb.exc_idx, pb.exc_val, 256, pb.width)
-        wire_p, st_p = f_pk(pb.packed, epk, lengths, n)
-        np.testing.assert_array_equal(
-            np.asarray(st_u), np.asarray(st_p), err_msg=text
+        valid = np.asarray(out["valid"])
+        oracle = Oracle(
+            scheme, me, list(conv.samples_barcode_hash.keys()),
+            [s.sequences for s in conv.counted_sets], 0.0,
         )
+        for i, (r, q) in enumerate(zip(reads, quals)):
+            assert bool(valid[i]) == (
+                oracle.decode(r, q).outcome == "matched"
+            ), (i, text)
         # wire rows must agree on valid reads (invalid rows may hold
-        # garbage slot words on both sides; the host masks by valid)
-        su = np.asarray(st_u)
-        valid = su == pdec.ST_VALID
+        # garbage slot words; the host masks by valid)
         np.testing.assert_array_equal(
-            np.asarray(wire_u)[valid], np.asarray(wire_p)[valid],
-            err_msg=text,
+            wire_p[valid], wire_u[valid], err_msg=text
         )
         checked += 1
 

@@ -187,7 +187,7 @@ def test_packed_sharded_engine_equals_single(tmp_path, rng, min_quality):
 
 
 def test_col_major_wire_equals_row(tmp_path, rng, monkeypatch):
-    """NGS_WIRE_LAYOUT=col ships the packed matrix transposed (relay
+    """NGS_WIRE_LAYOUT=col ships the packed matrix transposed (slow-link
     compression likes aligned columns); counts must be identical."""
     paths = write_inputs(tmp_path)
     cfg0 = _mk_config(tmp_path, "x.fastq", paths)
@@ -221,7 +221,7 @@ def test_col_major_wire_equals_row(tmp_path, rng, monkeypatch):
 @pytest.mark.parametrize("min_q", [0.0, 30.0])
 def test_sorted_col_wire_equals_unsorted(tmp_path, rng, monkeypatch, min_q):
     """The producer-side batch sort (reads clustered by leading packed
-    bytes before the col-major transpose, -30% relay bytes) must be
+    bytes before the col-major transpose, -30% link bytes) must be
     invisible to every consumer: lengths, Phred lanes, and the sparse N
     exceptions all permute consistently.  Random-barcode keyed mode +
     quality gate + N-salted reads is the worst case."""

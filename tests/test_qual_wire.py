@@ -168,24 +168,25 @@ def test_qual_wire_sharded_engine(tmp_path, rng, monkeypatch):
 
 @pytest.mark.parametrize("n_levels", [5, 3])
 def test_q4_kernel_bit_identical(tmp_path, rng, monkeypatch, n_levels):
-    """The in-kernel packed-quality decode (4-bit at 5 levels, 2-bit at
-    3 levels) must equal the raw-quals kernel bit-for-bit."""
+    """The packed quality wire (4-bit at 5 levels, 2-bit at 3 levels),
+    expanded on device, through dense_count_step_packed_q must equal the
+    same step on the raw int8 Phred batch bit-for-bit."""
     import tempfile
 
     import jax.numpy as jnp
 
+    from ngs_barcode_count_tpu import stats
     from ngs_barcode_count_tpu.io.parallel_ingest import (
         read_fastq_packed_parallel,
     )
-    from ngs_barcode_count_tpu.ops import pallas_decode as pdec
     from ngs_barcode_count_tpu.ops.decode import (
-        unpack_bases,
+        dense_count_step_packed_q,
         unpack_quals_wire,
     )
     from ngs_barcode_count_tpu.utils import simulate
+    from tests.test_decode_steps import _strip_random
     from tests.test_decode_vs_oracle import build_plan
     from tests.test_end_to_end import BC1, BC2, BC3, SAMPLES
-    from tests.test_pallas_decode import _strip_random
 
     scheme = _strip_random(None)
     plan, oracle, conv = build_plan(scheme, min_quality=30.0)
@@ -204,45 +205,46 @@ def test_q4_kernel_bit_identical(tmp_path, rng, monkeypatch, n_levels):
         reads.append(r)
         q = [levels[i] for i in rng.integers(0, len(levels), len(r))]
         quals.append("".join(chr(v + 33) for v in q))
-    monkeypatch.setenv("NGS_QUAL_WIRE", "pack")
-    with tempfile.TemporaryDirectory() as td:
-        fq = td + "/q.fastq"
-        simulate.write_fastq(fq, reads, quals)
-        pb = next(iter(read_fastq_packed_parallel(
-            fq, min_width=scheme.length, batch_reads=512, with_quals=True,
-        )))
-    if getattr(pb, "transposed", False):
-        pb.packed = np.ascontiguousarray(pb.packed.T)
-        if pb.quals_packed is not None:
-            pb.quals_packed = np.ascontiguousarray(pb.quals_packed.T)
-        pb.transposed = False
+
+    def batch(mode):
+        monkeypatch.setenv("NGS_QUAL_WIRE", mode)
+        with tempfile.TemporaryDirectory() as td:
+            fq = td + "/q.fastq"
+            simulate.write_fastq(fq, reads, quals)
+            pb = next(iter(read_fastq_packed_parallel(
+                fq, min_width=scheme.length, batch_reads=512,
+                with_quals=True,
+            )))
+        if getattr(pb, "transposed", False):
+            pb.packed = np.ascontiguousarray(pb.packed.T)
+            if pb.quals_packed is not None:
+                pb.quals_packed = np.ascontiguousarray(pb.quals_packed.T)
+            pb.transposed = False
+        return pb
+
+    def step(pb, q):
+        return dense_count_step_packed_q(
+            plan, jnp.zeros(plan.n_samples * plan.n_combos, jnp.int32),
+            jnp.zeros(stats.NUM_COUNTERS, jnp.int32), pb.packed,
+            pb.lengths, pb.exc_idx, pb.exc_val, q, pb.width,
+            np.array([pb.n_reads], np.int32),
+        )
+
+    pb = batch("pack")
     assert pb.quals_packed is not None
     bits = 2 if len(levels) <= 4 else 4
     assert pb.qual_bits == bits
-    n = np.array([pb.n_reads], np.int32)
-    lengths = np.asarray(pb.lengths).astype(np.int32)
-    epk = pdec.exc_plane(pb.exc_idx, pb.exc_val, 512, pb.width)
-
-    f_raw = pdec.build_pallas_decode(
-        plan, pb.width, TB=8, interpret=True, packed_input=True
-    )
-    quals_raw = unpack_quals_wire(
+    q_wire = unpack_quals_wire(
         pb.quals_packed, pb.qual_codebook, pb.width, bits
     )
-    flat_r, st_r = f_raw(pb.packed, epk, lengths, n, quals_raw)
-
-    f_q4 = pdec.build_pallas_decode(
-        plan, pb.width, TB=8, interpret=True, packed_input=True,
-        qual_bits=bits,
-    )
-    flat_q, st_q = f_q4(
-        pb.packed, epk, lengths, n, pb.quals_packed,
-        jnp.asarray(pb.qual_codebook, jnp.int32),
-    )
-    st_r, st_q = np.asarray(st_r), np.asarray(st_q)
-    np.testing.assert_array_equal(st_r, st_q)
-    np.testing.assert_array_equal(np.asarray(flat_r), np.asarray(flat_q))
-    assert (st_r == pdec.ST_LOWQ).sum() > 0  # the gate actually fired
+    raw = batch("raw")
+    assert raw.quals is not None and raw.quals_packed is None
+    np.testing.assert_array_equal(np.asarray(q_wire), raw.quals)
+    c_w, k_w = step(pb, q_wire)
+    c_r, k_r = step(raw, raw.quals)
+    np.testing.assert_array_equal(np.asarray(c_w), np.asarray(c_r))
+    np.testing.assert_array_equal(np.asarray(k_w), np.asarray(k_r))
+    assert int(np.asarray(k_r)[stats.LOW_QUALITY]) > 0  # the gate fired
 
 
 def test_qual_wire_hashset_engine(tmp_path, rng, monkeypatch):
@@ -389,7 +391,7 @@ def test_host_gate_checkpoint_resume(tmp_path, rng, monkeypatch):
 
 def test_host_gate_dual_stream_bit_identical(tmp_path, rng, monkeypatch):
     """Dual-stream lanes each own a host-gate pipeline; every lane's
-    queue must drain into the merge (a round-5 TPU A/B caught 2/3 of
+    queue must drain into the merge (a round-5 hardware A/B caught 2/3 of
     counts silently dropped before the fix)."""
     paths = write_inputs(tmp_path)
     cfg0 = _mk_config(tmp_path, "x.fastq", paths)

@@ -1,5 +1,4 @@
-"""Dedup-table saturation (VERDICT r2 weak #5) and the Pallas-fallback
-warning (weak #3).
+"""Dedup-table saturation (VERDICT r2 weak #5).
 
 Saturation: with a tiny fingerprint table, one batch overflows more rows
 than its compacted buffer holds.  Round 2 aborted the run there; now the
@@ -120,40 +119,6 @@ def test_saturation_recovers_sharded(tmp_path, rng, monkeypatch):
     assert acc.results_view().per_sample == acc_host.results_view().per_sample
 
 
-def test_pallas_build_failure_warns(monkeypatch, tmp_path):
-    """A kernel-build exception must not be swallowed silently (it costs
-    1.3-4x device throughput): runner._pallas_*_for warns and falls back
-    to the XLA path."""
-    import jax
-
-    from ngs_barcode_count_tpu.ops import pallas_decode as pdec
-
-    paths = write_inputs(tmp_path)
-    cfg = _mk_config(tmp_path, "x.fastq", paths)
-    scheme, conv, me, plan, _ = setup(cfg)
-    acc = CountAccumulator(plan, conv)
-
-    class FakeDev:
-        platform = "tpu"
-
-    monkeypatch.setattr(jax, "devices", lambda *a, **k: [FakeDev()])
-    monkeypatch.setenv("NGS_DECODE_KERNEL", "pallas")
-
-    def boom(*a, **k):
-        raise ValueError("synthetic Mosaic regression")
-
-    monkeypatch.setattr(pdec, "build_pallas_packed_step", boom)
-    monkeypatch.setattr(pdec, "build_pallas_keyed_packed_step", boom)
-    monkeypatch.setattr(pdec, "build_pallas_hashset_step", boom)
-
-    with pytest.warns(RuntimeWarning, match="dense packed.*Mosaic"):
-        assert acc._pallas_step_for(96) is None
-    with pytest.warns(RuntimeWarning, match="keyed packed.*Mosaic"):
-        assert acc._pallas_keyed_step_for(96) is None
-    with pytest.warns(RuntimeWarning, match="hashset.*Mosaic"):
-        assert acc._pallas_hashset_step_for(96, 1024) is None
-
-
 def test_overflow_pin_budget_harvests_early(monkeypatch):
     """The replay lookahead must not pin unbounded host memory: once the
     retained batches exceed NGS_OVERFLOW_PIN_MB, the queue harvests
@@ -225,7 +190,7 @@ def test_sharded_n1_equals_single_device(tmp_path, rng, monkeypatch,
     """An n_data=1 ShardedHashsetEngine must match the single-device
     hashset step EXACTLY (counts, counters, overflow rows) under every
     dedup variant — the round-4 sorted default regressed this on the
-    chip when the engine's tail still ran row-order (TPU_CHECK r4);
+    chip when the engine's tail still ran row-order (round 4);
     both now share ops.decode.probe_insert."""
     import jax
     import jax.numpy as jnp
